@@ -1,7 +1,7 @@
-// tuun-tpu native oracle engine.
+// tuun-jax native oracle engine.
 //
 // A C++ port of the per-sample reference semantics (generator.rs /
-// tuun_tpu/oracle.py): the same f32 arithmetic, f64 sine phase accumulator,
+// tuun_jax/oracle.py): the same f32 arithmetic, f64 sine phase accumulator,
 // K-1 filter input delay, merge zero-extension, symbolic Fin roots with the
 // generate-and-scan fallback, and length()-advance rules.  It exists as the
 // fast host-side reference: long-window golden generation for differential
@@ -12,7 +12,7 @@
 //   nodes:  int32[n][4]  (opcode, a, b, c)
 //   consts: float32[]    (Const values)
 //   data:   float32[]    (Fixed payload pool)
-// See tuun_tpu/native.py for the encoder.  C ABI via ctypes.
+// See tuun_jax/native.py for the encoder.  C ABI via ctypes.
 
 #include <algorithm>
 #include <cmath>
@@ -515,7 +515,7 @@ std::unique_ptr<Node> build(const int32_t* nodes, int64_t n_nodes,
 // voices — the runtime analogue of tracker.rs's audio callback (promote
 // pending voices at their start sample, catch up late starts by
 // generating-and-discarding, additively mix, retire finished voices).
-// The TPU tracker (tuun_tpu/tracker.py) is the production path; this is
+// The JAX tracker (tuun_jax/tracker.py) is the production path; this is
 // the fast native CPU fallback and the host-side reference for it.
 // ---------------------------------------------------------------------------
 

@@ -6,13 +6,13 @@ from pathlib import Path
 
 import pytest
 
-import tuun_tpu.actions as A
-from tuun_tpu import keymap
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.ids import MarkId, WaveformId
-from tuun_tpu.tracker import Mark, Status
+import tuun_jax.actions as A
+from tuun_jax import keymap
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.ids import MarkId, WaveformId
+from tuun_jax.tracker import Mark, Status
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 SOURCE = '''open std;
 #{sliders=["gain:0.5:0:1"]}
@@ -497,7 +497,7 @@ def test_mouse_slider_adjust_clamps():
 
 
 def test_set_level_db_modifies_amplitude_mark():
-    from tuun_tpu import ir
+    from tuun_jax import ir
     state = make_state()
     effects = A.apply(state, ctx(), A.SetLevelDb(1, -6.0))
     assert state.programs.programs[1].level_db == -6.0
@@ -656,7 +656,7 @@ def test_editor_ops_fuzz_against_string_model():
 
 
 def test_midi_notes_and_running_status():
-    from tuun_tpu import midi
+    from tuun_jax import midi
     state = make_state()
     assert midi.classify_bytes(state, 0x90, 60, 100) == [A.NoteOn(60, 100)]
     assert midi.classify_bytes(state, 0x80, 60, 0) == [A.NoteOff(60)]
@@ -667,7 +667,7 @@ def test_midi_notes_and_running_status():
 
 
 def test_midi_cc_sliders_and_volume():
-    from tuun_tpu import midi
+    from tuun_jax import midi
     state = make_state()  # program 0 has the "gain" slider
     acts = midi.classify_bytes(state, 0xB0, 21, 127)
     assert acts == [A.SetSliderNormalized(0, 0, 1.0)]
@@ -681,7 +681,7 @@ def test_midi_cc_sliders_and_volume():
 
 
 def test_midi_navigation():
-    from tuun_tpu import midi
+    from tuun_jax import midi
     state = make_state()
     assert midi.classify_bytes(state, 0xB0, 116, 127) == \
         [A.AdvanceProgram(1)]
@@ -695,10 +695,10 @@ def test_midi_drives_runner_end_to_end(tmp_path):
     runner strikes and releases a real voice."""
     import numpy as np
 
-    from tuun_tpu import midi
-    from tuun_tpu.effects import EffectRunner
-    from tuun_tpu.player import Player
-    from tuun_tpu.tracker import Tracker
+    from tuun_jax import midi
+    from tuun_jax.effects import EffectRunner
+    from tuun_jax.player import Player
+    from tuun_jax.tracker import Tracker
 
     src = '''open std;
 #{level_db=0}

@@ -1,4 +1,4 @@
-"""Host PCM output (tuun_tpu.audio): the StreamPump owns the tracker on
+"""Host PCM output (tuun_jax.audio): the StreamPump owns the tracker on
 an audio thread, drains marshaled commands at block boundaries, paces
 blocks against the wall clock, and delivers landed PCM to a sink — the
 reference's SDL2 audio-callback contract (main.rs:99-110,
@@ -14,15 +14,15 @@ from pathlib import Path
 
 import numpy as np
 
-from tuun_tpu import audio
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.expr import ESeq
-from tuun_tpu.ids import MarkId, WaveformId
-from tuun_tpu.optimizer import optimize
-from tuun_tpu.player import build_top_level_waveform, stop_ramp
-from tuun_tpu.tracker import Tracker
+from tuun_jax import audio
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.expr import ESeq
+from tuun_jax.ids import MarkId, WaveformId
+from tuun_jax.optimizer import optimize
+from tuun_jax.player import build_top_level_waveform, stop_ramp
+from tuun_jax.tracker import Tracker
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 SR = 8000
 BLOCK = 256
 BS = BLOCK / SR
@@ -208,7 +208,7 @@ def test_open_sink_prefers_pcm_path(tmp_path):
 
 
 def test_repl_goes_live_and_refuses_offline_renders(tmp_path, monkeypatch):
-    from tuun_tpu.repl import Repl
+    from tuun_jax.repl import Repl
 
     src = tmp_path / "song.tuun"
     src.write_text("open std;\n#{level_db=0}\n_ = $330 * 0.5;\n")
@@ -247,7 +247,7 @@ def test_repl_goes_live_and_refuses_offline_renders(tmp_path, monkeypatch):
 
 def test_live_view_paints_from_the_delivered_pcm_tap(tmp_path,
                                                      monkeypatch):
-    from tuun_tpu.repl import Repl
+    from tuun_jax.repl import Repl
 
     src = tmp_path / "song.tuun"
     src.write_text("open std;\n#{level_db=0}\n_ = $330 * 0.5;\n")
@@ -383,7 +383,7 @@ def test_audio_restart_after_pump_death_restores_cadence(tmp_path,
     offline sync cadence restored) instead of clobbering the saved
     cadence with the already-bumped value — which would leave the
     tracker in deferred-sync streaming mode forever (review round 4)."""
-    from tuun_tpu.repl import Repl
+    from tuun_jax.repl import Repl
 
     src = tmp_path / "song.tuun"
     src.write_text("open std;\n#{level_db=0}\n_ = $330 * 0.5;\n")
@@ -417,7 +417,7 @@ def test_audio_restart_after_pump_death_restores_cadence(tmp_path,
 def test_dispatch_survives_a_stalled_audio_thread(tmp_path, monkeypatch):
     """TimeoutError from the audio thread (e.g. a >2 min first compile)
     must be reported, not tear down the live session (review round 4)."""
-    from tuun_tpu.repl import Repl
+    from tuun_jax.repl import Repl
 
     sink = FakeSink()
     monkeypatch.setattr(audio, "open_sink",
@@ -561,7 +561,7 @@ def test_device_error_mid_stream_surfaces_in_audio_status(
     """The first minutes on a real host: audio goes live on the
     sounddevice sink, the device dies mid-stream, and `audio status`
     names the error instead of a silent dead thread."""
-    from tuun_tpu.repl import Repl
+    from tuun_jax.repl import Repl
 
     _mock_sounddevice(monkeypatch, fail_after=3)
     src = tmp_path / "song.tuun"
@@ -653,12 +653,12 @@ def test_call_progress_fires_while_a_command_waits():
 
 def test_repl_logs_compile_progress_while_play_holds_audio(
         tmp_path, monkeypatch):
-    """The VERDICT r04 cold-start gap: a brand-new structure stalls a
+    """The cold-start gap: a brand-new structure stalls a
     live `play` for the compile with only 'audio thread busy' feedback.
     Now the session says it is compiling, with elapsed seconds."""
     import threading
 
-    from tuun_tpu.repl import Repl
+    from tuun_jax.repl import Repl
 
     src = tmp_path / "song.tuun"
     src.write_text("open std;\n#{level_db=0}\n_ = $330 * 0.5;\n")

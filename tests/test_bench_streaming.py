@@ -3,7 +3,7 @@ CPU backend: the wall-clock-paced phase must survive the full command
 script (note-on, slider ramp, note-off, level change, second note) with
 the tracker's lookahead windows engaged — the reference's operating
 contract (tracker.rs:321-368 drains commands every callback while never
-missing the buffer).  The TPU gate lives in bench.py main(); this test
+missing the buffer).  The device gate lives in bench.py main(); this test
 pins the harness semantics where they can run deterministically."""
 
 import sys
@@ -27,7 +27,7 @@ def test_script_positions_are_ordered_and_gapped():
 
 def test_paced_streaming_with_injected_commands_cpu():
     # Small K and short paced phase: the harness walk (rehearse ->
-    # reset -> paced replay with interrupts) is identical to the TPU
+    # reset -> paced replay with interrupts) is identical to the device
     # lane; only scale differs.
     sps, misses, max_lat, latencies = bench.bench_streaming(
         n_voices=4, seconds=0.8, block=1024, sync_interval=4,
@@ -35,7 +35,7 @@ def test_paced_streaming_with_injected_commands_cpu():
     # Every scripted command fired and was timed.
     assert [name for name, _ in latencies] == bench.STREAM_SCRIPT
     assert all(lat > 0 for _, lat in latencies)
-    # Zero misses is the TPU gate; on the shared CI CPU a couple of
+    # Zero misses is the device gate; on the shared CI CPU a couple of
     # blocks may slip — what must hold structurally is that the paced
     # phase completed and commands were audible within the ring budget
     # plus a generous scheduling allowance.

@@ -1,4 +1,4 @@
-"""The batch CLI (tuun_tpu.cli) driven in-process: expression renders,
+"""The batch CLI (tuun_jax.cli) driven in-process: expression renders,
 program files, .tuunp lists, captures, dumps, and error paths."""
 
 from pathlib import Path
@@ -6,8 +6,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tuun_tpu import cli
-from tuun_tpu.wav import read_wav
+from tuun_jax import cli
+from tuun_jax.wav import read_wav
 
 FAST = ["--precision", "exact", "--no-jit", "--sample_rate", "100",
         "--buffer_size", "32"]
@@ -94,8 +94,8 @@ def test_all_bindings_mode(tmp_path):
 
 def test_scope_tool_renders_png(tmp_path):
     pytest.importorskip("matplotlib")
-    from tuun_tpu.tools import scope
-    from tuun_tpu.wav import write_wav_f32
+    from tuun_jax.tools import scope
+    from tuun_jax.wav import write_wav_f32
     import numpy as np
     wav = tmp_path / "in.wav"
     t = np.arange(800) / 100.0
@@ -110,13 +110,13 @@ def test_subprocess_exit_clean_with_inflight_compiles(tmp_path):
     """A render that finishes before its background fused-step compile
     must still exit 0: daemon worker threads torn down inside XLA abort
     the interpreter ("FATAL: exception not rethrown") — regression for
-    the shutdown registry in tuun_tpu/_threads.py.  Runs the real CLI in
+    the shutdown registry in tuun_jax/_threads.py.  Runs the real CLI in
     a subprocess (jitted, so the async compile path engages)."""
     import subprocess
     import sys
     out = tmp_path / "out.wav"
     proc = subprocess.run(
-        [sys.executable, "-m", "tuun_tpu", "--expr",
+        [sys.executable, "-m", "tuun_jax", "--expr",
          "($440 | fin(time - 1)) * 0.5", "--platform", "cpu",
          "--render-out", str(out), "--quiet"],
         capture_output=True, text=True, timeout=600)

@@ -6,15 +6,15 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tuun_tpu import ir, optimizer, oracle
-from tuun_tpu.engine import EngineConfig
-from tuun_tpu.engine.precompute import precompute
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.tools.web_checker import check_files
+from tuun_jax import ir, optimizer, oracle
+from tuun_jax.engine import EngineConfig
+from tuun_jax.engine.precompute import precompute
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.tools.web_checker import check_files
 
 REFERENCE = Path("/root/reference")
 REFERENCE_DOCS = REFERENCE / "docs"
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 
 @pytest.mark.skipif(not REFERENCE_DOCS.is_dir(),
@@ -67,11 +67,11 @@ def test_corpus_render_diff_subset():
     """A few docs-corpus files rendered through the production engine
     (fast precision) and diffed against the native oracle — the bench's
     corpus_render lane (bench.bench_corpus) in CI form.  The full-corpus
-    sweep runs on the TPU in bench.py; this subset keeps the render-diff
+    sweep runs on the device in bench.py; this subset keeps the render-diff
     machinery (including noise statistics and the reset-inner lits
     threading it once caught) exercised on every test run."""
-    from tuun_tpu import native
-    from tuun_tpu.tools.web_checker import check_files
+    from tuun_jax import native
+    from tuun_jax.tools.web_checker import check_files
     if not native.native_available():
         pytest.skip("native oracle unavailable")
     files = [REFERENCE_DOCS / "instruments.md",
@@ -89,7 +89,7 @@ def test_examples_programs_all_play(tmp_path):
     lane covers the reference docs; this covers OUR example programs —
     regression for song.tuun's `| fin(t) * 0.5` precedence bug, which
     multiplied the curried fin builtin by a float)."""
-    from tuun_tpu import cli
+    from tuun_jax import cli
     examples = sorted((Path(__file__).resolve().parent.parent
                        / "examples").glob("*.tuun"))
     assert len(examples) >= 3

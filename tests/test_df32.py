@@ -1,7 +1,7 @@
 """Double-single (two-float) arithmetic (engine/df32.py): the error-free
 transformations must be exact against f64, and the compensated prefix
 sum must hold f64-class accuracy where the plain f32 cumsum drifts —
-the property the exact-on-TPU prototype rests on (design.md §3b)."""
+the property exact_df rests on (design.md §3b)."""
 
 import math
 
@@ -9,7 +9,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from tuun_tpu.engine import df32
+from tuun_jax.engine import df32
 
 
 def test_two_sum_is_error_free():

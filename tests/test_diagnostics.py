@@ -9,11 +9,11 @@ from pathlib import Path
 
 import pytest
 
-from tuun_tpu.diagnostics import Diagnostic, render_snippet
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.expr import line_col
+from tuun_jax.diagnostics import Diagnostic, render_snippet
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.expr import line_col
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 
 def test_line_col_is_one_based():
@@ -72,7 +72,7 @@ def test_module_error_is_located_in_the_module(tmp_path):
     (tmp_path / "broken.tuun").write_text(
         "good = 1;\nbad = nonexistent_name;\n")
     ev = Evaluator(100, 60, tmp_path)
-    from tuun_tpu.expr import BOpen, SourceBinding
+    from tuun_jax.expr import BOpen, SourceBinding
     evaluation = ev.evaluate_program(
         "bad", extra_bindings=[SourceBinding(BOpen(("broken",)))])
     assert evaluation.kind == "invalid"
@@ -86,7 +86,7 @@ def test_module_error_is_located_in_the_module(tmp_path):
 def test_module_parse_error_is_located_in_the_module(tmp_path):
     (tmp_path / "syn.tuun").write_text("x = 1 +;\n")
     ev = Evaluator(100, 60, tmp_path)
-    from tuun_tpu.expr import BOpen, SourceBinding
+    from tuun_jax.expr import BOpen, SourceBinding
     evaluation = ev.evaluate_program(
         "x", extra_bindings=[SourceBinding(BOpen(("syn",)))])
     assert evaluation.kind == "invalid"
@@ -96,7 +96,7 @@ def test_module_parse_error_is_located_in_the_module(tmp_path):
 
 def test_open_unknown_module_errors():
     ev = Evaluator(100, 60, STDLIB)
-    from tuun_tpu.expr import BOpen, SourceBinding
+    from tuun_jax.expr import BOpen, SourceBinding
     evaluation = ev.evaluate_program(
         "1", extra_bindings=[SourceBinding(BOpen(("no_such_module",)))])
     assert evaluation.kind == "invalid"

@@ -7,14 +7,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-import tuun_tpu.actions as A
-from tuun_tpu.effects import EffectRunner
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.ids import WaveformId
-from tuun_tpu.player import Player
-from tuun_tpu.tracker import Tracker
+import tuun_jax.actions as A
+from tuun_jax.effects import EffectRunner
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.ids import WaveformId
+from tuun_jax.player import Player
+from tuun_jax.tracker import Tracker
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 SOURCE = '''open std;
 #{sliders=["gain:0.5:0:1"]}
@@ -172,7 +172,7 @@ def test_save_all_and_reload_keys(tmp_path):
 
 
 def test_keymap_save_reload_bindings(tmp_path):
-    from tuun_tpu import keymap
+    from tuun_jax import keymap
     runner, _, _ = make_runner(tmp_path)
     assert keymap.classify_key(runner.state, "S") == [A.SaveAll()]
     assert keymap.classify_key(runner.state, "R") == [A.ReloadFile()]

@@ -12,16 +12,16 @@ import jax
 import numpy as np
 import pytest
 
-from tuun_tpu import engine, ir, oracle, optimizer
-from tuun_tpu.engine import EngineConfig, compile_voice
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.expr import ESeq, EWaveform
-from tuun_tpu.ir import (Alt, Append, BinaryPointOp, Const, Filter, Fin,
+from tuun_jax import engine, ir, oracle, optimizer
+from tuun_jax.engine import EngineConfig, compile_voice
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.expr import ESeq, EWaveform
+from tuun_jax.ir import (Alt, Append, BinaryPointOp, Const, Filter, Fin,
                          Fixed, Marked, Noise, Operator, Reset, Sine, Time)
 
 from pathlib import Path
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 
 def sub_time(c):
@@ -43,7 +43,7 @@ def diff_test(w, n, sr=1, atol=1e-6, blocks=(7, 16, 64), optimize=True,
         # Precompute bakes finite subtrees to Fixed; noise-bearing trees
         # bake with the precomputer's own stream ids, so (like the
         # reference, whose noise is never reproducible) they're skipped.
-        from tuun_tpu.engine.precompute import EnginePrecomputer
+        from tuun_jax.engine.precompute import EnginePrecomputer
         pc = EnginePrecomputer(
             sr, seed=seed,
             cfg=EngineConfig(sr, "exact", jit=False)).precompute(
@@ -179,7 +179,7 @@ def test_marked_captured():
 
 
 def test_capture_collection():
-    from tuun_tpu.engine import CompiledVoice
+    from tuun_jax.engine import CompiledVoice
     w = BinaryPointOp(Operator.MULTIPLY, ir.Captured("inner", Time()),
                       Const(2.0))
     cfg = EngineConfig(1, "exact", jit=False)
@@ -281,7 +281,7 @@ def test_gated_sequence_chain_jitted():
 
 def test_gated_capture_not_skipped():
     """A capture-bearing subtree must not be cond-gated away."""
-    from tuun_tpu.engine import CompiledVoice
+    from tuun_jax.engine import CompiledVoice
     w = ir.Append(
         Fin(sub_time(3.0), Const(1.0)),
         ir.Captured("tail", ir.BinaryPointOp(
@@ -318,7 +318,7 @@ def test_reloc_fast_path_matches_interval_path():
     function of the absolute index, literal Fin cutoffs via lits_for)
     must match the default interval machinery sample-for-sample,
     including mid-block starts and Append/Fin/merge boundaries."""
-    from tuun_tpu.engine import CompiledVoice
+    from tuun_jax.engine import CompiledVoice
     w = ir.BinaryPointOp(
         Operator.MERGE,
         ir.Append(Fin(sub_time(3.0), sin_waveform(0.21, 0.4)),
@@ -355,7 +355,7 @@ def test_reloc_fast_path_matches_interval_path():
 def _fast_render(w, n, sr, block, analytic=True, jit=True):
     """Fast-mode render with the analytic-Reset tier force-disabled when
     analytic=False (compiles the generic sampled-sign path)."""
-    import tuun_tpu.engine.graph as G
+    import tuun_jax.engine.graph as G
     orig = G.CReset.__dict__["_analytic_ok"]
     orig_w = G.CReset.__dict__["_wrap_edge_info"]
     orig_p = G.CReset.__dict__["_wrap_edge_info_pwm"]
@@ -380,11 +380,24 @@ def _std_waveform(text, sr=100, tempo=60):
     return optimizer.optimize(out.waveform)
 
 
+def test_nco_sign_rule_holds_at_every_grid_angle():
+    """CReset's analytic tier rests on this: f32 sin of the NCO angle is
+    >= 0 exactly when the uint32 phase is below half a turn, for all 2^24
+    grid angles (chip_smoke.py phase d checks the GPU's sin)."""
+    import jax.numpy as jnp
+
+    from tuun_jax.engine.graph import _nco_angle
+
+    ph = jnp.arange(1 << 24, dtype=jnp.uint32) << jnp.uint32(8)
+    pos = jnp.sin(_nco_angle(ph)) >= 0
+    assert int(jnp.sum(pos != (ph < jnp.uint32(1 << 31)))) == 0
+
+
 def test_analytic_reset_matches_sampled_sign_path():
     """The closed-form edge tier (phase-wrap ages) must be BIT-identical
     to the generic sampled-sign path it replaces: the phase-bit sign rule
-    is exact for every NCO grid angle (verified exhaustively on the TPU
-    and CPU backends — see CReset's class doc)."""
+    is exact for every NCO grid angle (checked exhaustively on the CPU
+    here and on the GPU by chip_smoke.py — see CReset's class doc)."""
     for text in ("sawtooth(10)", "triangle(10)", "pulse(0.5, 10)",
                  "sawtooth(7.3)", "triangle(49.9)",
                  "pulse(0.25, 5) * 0.5 + $10 * 0.5"):
@@ -420,8 +433,8 @@ def test_analytic_reset_age_state_matches_generic():
     tier's after every block — Modify carries map it onto recompiled
     trees, so the bookkeeping has to be right even though the analytic
     render itself never reads it."""
-    import tuun_tpu.engine.graph as G
-    from tuun_tpu.engine import CompiledVoice
+    import tuun_jax.engine.graph as G
+    from tuun_jax.engine import CompiledVoice
     w = optimizer.optimize(_std_waveform("sawtooth(10)"))
     cfg = EngineConfig(100, "fast", jit=False)
     v_new = CompiledVoice(w, cfg)
@@ -445,7 +458,7 @@ def test_analytic_reset_age_state_matches_generic():
 def test_analytic_reset_reloc_matches_interval():
     """Analytic resets are relocatable; the reloc evaluation must equal
     the interval render sample-for-sample across carried blocks."""
-    from tuun_tpu.engine import CompiledVoice
+    from tuun_jax.engine import CompiledVoice
     w = _std_waveform("(sawtooth(12) * 0.3 + triangle(7) * 0.2)"
                       " | fin(time - 2)")
     cfg = EngineConfig(100, "fast", jit=True)
@@ -464,7 +477,7 @@ def test_analytic_reset_reloc_matches_interval():
 def test_analytic_reset_eligibility_gates():
     """Super-Nyquist or non-zero-phase triggers must stay on the generic
     path (and still render correctly vs the exact-mode reference)."""
-    import tuun_tpu.engine.graph as G
+    import tuun_jax.engine.graph as G
 
     def root_reset(w, sr):
         voice = compile_voice(optimizer.optimize(w),
@@ -487,7 +500,7 @@ def test_analytic_reset_eligibility_gates():
 
 
 def _root_reset(w, sr=100):
-    import tuun_tpu.engine.graph as G
+    import tuun_jax.engine.graph as G
     node = compile_voice(optimizer.optimize(w),
                          EngineConfig(sr, "fast", jit=False)).root
     while not isinstance(node, G.CReset):
@@ -566,8 +579,8 @@ def test_composite_trigger_state_matches_generic():
     """Carried sign/age for composite triggers (the k-prefix sign rule
     and the PWM closed-form last-lane sign) must equal the generic
     tier's sampled bookkeeping block by block."""
-    import tuun_tpu.engine.graph as G
-    from tuun_tpu.engine import CompiledVoice
+    import tuun_jax.engine.graph as G
+    from tuun_jax.engine import CompiledVoice
     for text in ("reset(pulse(0.7, 11), $25 * 0.5)",
                  "reset(pulse(0.9 + 0.05 * $(1.6), 10), $25 * 0.5)"):
         w = _std_waveform(text)
@@ -627,8 +640,8 @@ def test_reconstruct_state_matches_continuous_render():
     state must be BIT-identical to a continuous interval render — the
     contract behind O(tree) Modify on long-lived fast-path voices."""
     import jax.numpy as jnp
-    from tuun_tpu.engine import CompiledVoice
-    from tuun_tpu.engine.graph import reconstruct_state
+    from tuun_jax.engine import CompiledVoice
+    from tuun_jax.engine.graph import reconstruct_state
 
     for text in ("sawtooth(10) * 0.5 + $7",
                  "triangle(12) | fin(time - 2)",
@@ -672,7 +685,7 @@ def test_state_at_uses_reconstruction_for_fast_voices():
     waveform runs an alt() whose FINITE trigger ends mid-history
     (regression: reconstruct_state advanced the branch cursors past the
     trigger's end, but CAlt.render never advances branches past vt)."""
-    from tuun_tpu.engine import CompiledVoice
+    from tuun_jax.engine import CompiledVoice
     for text in ("sawtooth(10) * 0.5 + $7",
                  "alt($3 | fin(time - 2), time, 0 - time)"):
         w = _std_waveform(text)
@@ -697,7 +710,7 @@ def test_note_fn_matches_block_by_block():
     offline path — docs/design.md §6) must reproduce the block-by-block
     render exactly: same last-block samples, same final state."""
     import jax.numpy as jnp
-    from tuun_tpu.engine import CompiledVoice
+    from tuun_jax.engine import CompiledVoice
     for text, sizes in (("harmonica(0.5, 40)", (37, 37, 19)),
                         ("sawtooth(10) * 0.5 + $7 | fin(time - 1)",
                          (64, 64)),
@@ -746,7 +759,7 @@ def test_structure_cache_separates_trigger_const_decisions():
     waveform's baked edge algebra (regression: a phase-0.5 trigger
     inherited the phase-0 voice's analytic wrap edges and rendered
     wrong resets)."""
-    from tuun_tpu.tracker import _CompileCache
+    from tuun_jax.tracker import _CompileCache
     cache = _CompileCache()
     cfg = EngineConfig(100, "fast", jit=True)
     mk = lambda ph: optimizer.optimize(ir.Reset(
@@ -773,7 +786,7 @@ def test_reconstruct_position_wraps_like_the_render():
     """Position cursors advance UNCLAMPED int32 in the interval render
     (wrapping two's-complement past 2^31); the closed-form
     reconstruction must wrap identically, not saturate at BIG_LIT."""
-    from tuun_tpu.engine.graph import _pos_i32
+    from tuun_jax.engine.graph import _pos_i32
     jnp_ = jax.numpy
     # The render's semantics: int32 cursor + int32 block advance.
     pos = jnp_.int32(2 ** 31 - 3)

@@ -12,9 +12,9 @@ import random
 import numpy as np
 import pytest
 
-from tuun_tpu import engine, ir, optimizer, oracle, parser
-from tuun_tpu.fuzzgen import random_waveform
-from tuun_tpu.fuzzgen import ill_conditioned as _ill_conditioned
+from tuun_jax import engine, ir, optimizer, oracle, parser
+from tuun_jax.fuzzgen import random_waveform
+from tuun_jax.fuzzgen import ill_conditioned as _ill_conditioned
 
 SR = 4
 
@@ -72,7 +72,7 @@ def test_fuzz_engine_vs_oracle(seed):
 
 @pytest.mark.parametrize("seed", seeds(40, 56))
 def test_fuzz_native_vs_oracle(seed):
-    from tuun_tpu import native
+    from tuun_jax import native
     if not native.native_available():
         pytest.skip("no native toolchain")
     rng = random.Random(seed)
@@ -93,7 +93,7 @@ def test_fuzz_native_vs_oracle(seed):
 def test_fuzz_reloc_fast_path_vs_oracle(seed):
     """The opt-in relocatable fast path (reloc_fast=True) against the
     oracle, over random trees that happen to be relocatable."""
-    from tuun_tpu.engine.graph import CompiledVoice, EngineConfig
+    from tuun_jax.engine.graph import CompiledVoice, EngineConfig
     rng = random.Random(seed)
     w = random_waveform(rng, depth=3)
     ref = oracle.render(w, 24, SR, seed=seed)
@@ -207,7 +207,7 @@ def test_fuzz_parser_printer_round_trip(seed):
     input: print(parse(s)) re-parses cleanly and reprints verbatim (the
     reference's assert_round_trip property, parser.rs:1156-1174, over a
     generated corpus instead of hand-picked strings)."""
-    from tuun_tpu.expr import format_expr
+    from tuun_jax.expr import format_expr
 
     rng = random.Random(seed)
     src = random_source(rng, depth=4)
@@ -227,9 +227,9 @@ def test_tracker_schedule_fuzz_across_configs():
     the group-rebuild rewind)."""
     import random
 
-    from tuun_tpu.tracker import Tracker
-    from tuun_tpu.ids import WaveformId
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.tracker import Tracker
+    from tuun_jax.ids import WaveformId
+    from tuun_jax.player import build_top_level_waveform
 
     rng = random.Random(99)
     sr = 100
@@ -282,7 +282,7 @@ def test_tracker_schedule_fuzz_across_configs():
                 got, base, atol=1e-5,
                 err_msg=f"trial {trial} config {label}")
         # Exact-precision differential against the native C++ tracker.
-        from tuun_tpu import native
+        from tuun_jax import native
         if native.native_available():
             t = Tracker(sr, block, precision="exact", jit=False)
             nt = native.NativeTracker(sr)
@@ -305,9 +305,9 @@ def test_tracker_command_fuzz_across_configs():
     correctly."""
     import random
 
-    from tuun_tpu.ids import WaveformId
-    from tuun_tpu.player import build_top_level_waveform
-    from tuun_tpu.tracker import Tracker
+    from tuun_jax.ids import WaveformId
+    from tuun_jax.player import build_top_level_waveform
+    from tuun_jax.tracker import Tracker
 
     rng = random.Random(7)
     sr = 100
@@ -373,9 +373,9 @@ def test_fuzz_exact_df_vs_oracle(seed):
     """exact_df — double-single (two-float) phase accumulation, no x64
     required (engine/df32.py, design.md §3b) — against the oracle at the
     STRICT exact tolerances.  This is the precision that lets the
-    differential suite run on the f32-only deployment target; here it is
-    pinned on CPU over its own seed bank (the TPU run is bench.py's
-    fuzz_tpu lane)."""
+    differential suite run in f32 arithmetic; here it is pinned on CPU
+    over its own seed bank (the device run is bench.py's fuzz_device
+    lane and chip_smoke.py phase d)."""
     rng = random.Random(seed)
     w = random_waveform(rng, depth=3)
     n = 24

@@ -7,14 +7,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tuun_tpu import engine, optimizer
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.expr import ESeq, EWaveform
-from tuun_tpu.tools.spectra import (estimate_f0, spectral_correlation,
+from tuun_jax import engine, optimizer
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.expr import ESeq, EWaveform
+from tuun_jax.tools.spectra import (estimate_f0, spectral_correlation,
                                     summarize_envelope)
-from tuun_tpu.wav import read_wav
+from tuun_jax.wav import read_wav
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 REFERENCE_DOCS = Path("/root/reference/docs")
 SR = 8000
 

@@ -10,12 +10,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tuun_tpu import builtins, eval as ev, ir, oracle, optimizer, parser
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.expr import (EFloat, ESeq, EWaveform, SourceBinding, TuunError,
+from tuun_jax import builtins, eval as ev, ir, oracle, optimizer, parser
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.expr import (EFloat, ESeq, EWaveform, SourceBinding, TuunError,
                            format_expr)
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 
 def eval_str(text, sample_rate=44100, tempo=90, opens=("std",)):
@@ -74,7 +74,7 @@ def test_named_defaults_evaluate_once():
     bindings = []
     builtins.add_bindings(bindings)
     bindings.append(SourceBinding.__new__(SourceBinding))
-    from tuun_tpu.expr import definition
+    from tuun_jax.expr import definition
     bindings[-1] = definition("debug", builtins.debug(printed.append))
     expr = parser.parse_program(
         "let f = fn(x, y = debug(1)) => x, _ = f(1), _ = f(2) in f(3)")
@@ -301,7 +301,7 @@ def test_pm_synth_module():
     bindings, errors = parser.parse_module(
         "open std; open pm_synth; out = pm_brass(220, 0.5);")
     assert not errors
-    from tuun_tpu.expr import BOpen
+    from tuun_jax.expr import BOpen
     bindings.insert(0, SourceBinding(BOpen(("__prelude",))))
     out = ev.evaluate(e.resolve, bindings, parser.parse_program("out"))
     assert isinstance(out, EWaveform)
@@ -343,7 +343,7 @@ def test_keys_instrument_classification():
     e = Evaluator(100, 90, STDLIB)
     bindings, errors = parser.parse_module("open std; open pm_synth;")
     assert not errors
-    from tuun_tpu.expr import BOpen
+    from tuun_jax.expr import BOpen
     bindings.insert(0, SourceBinding(BOpen(("__prelude",))))
     ctx = ev.evaluate_bindings(e.resolve, bindings)
     fn = next(v for n, v in reversed(ctx) if n == "pm_piano_keys")

@@ -10,17 +10,17 @@ from pathlib import Path
 
 import pytest
 
-import tuun_tpu.actions as A
-import tuun_tpu.launchkey as lk
-import tuun_tpu.midi as midi
-from tuun_tpu.effects import EffectRunner
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.ids import WaveformId, MarkId
-from tuun_tpu.player import Player
-from tuun_tpu.tools.midi_probe import FakeLaunchkey
-from tuun_tpu.tracker import Mark, Status, Tracker
+import tuun_jax.actions as A
+import tuun_jax.launchkey as lk
+import tuun_jax.midi as midi
+from tuun_jax.effects import EffectRunner
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.ids import WaveformId, MarkId
+from tuun_jax.player import Player
+from tuun_jax.tools.midi_probe import FakeLaunchkey
+from tuun_jax.tracker import Mark, Status, Tracker
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 SOURCE = '''open std;
 #{sliders=["gain:0.5:0:1"], color=rgb(200, 100, 50)}

@@ -7,14 +7,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tuun_tpu import engine, native, optimizer
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.expr import ESeq, EWaveform
+from tuun_jax import engine, native, optimizer
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.expr import ESeq, EWaveform
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="native toolchain unavailable")
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 SR = 8000
 SECONDS = 2.0
 
@@ -98,7 +98,7 @@ def test_fast_mode_long(text):
 def test_fm_fast_drift_envelope(text, per_min):
     """Fast-mode FM/PM drift vs the f64 oracle stays inside the
     documented linear envelope (2x the measured slope) out to an hour."""
-    from tuun_tpu.engine import CompiledVoice, EngineConfig
+    from tuun_jax.engine import CompiledVoice, EngineConfig
 
     sr = 8000
     win = 4096
@@ -143,9 +143,9 @@ def test_fast_index_boundary_2pow24():
     cutoff just above the boundary, reconstructing state near the
     boundary instead of rendering 16.8M samples."""
     import jax.numpy as jnp
-    from tuun_tpu import ir
-    from tuun_tpu.engine import CompiledVoice, EngineConfig
-    from tuun_tpu.engine.graph import reconstruct_state
+    from tuun_jax import ir
+    from tuun_jax.engine import CompiledVoice, EngineConfig
+    from tuun_jax.engine.graph import reconstruct_state
 
     sr = 8000
     dur = 2100.0                   # cutoff 16,800,000 > 2^24

@@ -11,16 +11,16 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tuun_tpu import ir, native, optimizer, oracle
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.expr import ESeq, EWaveform
-from tuun_tpu.ir import (Alt, Append, BinaryPointOp, Const, Filter, Fin,
+from tuun_jax import ir, native, optimizer, oracle
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.expr import ESeq, EWaveform
+from tuun_jax.ir import (Alt, Append, BinaryPointOp, Const, Filter, Fin,
                          Fixed, Marked, Noise, Operator, Reset, Sine, Time)
 
 pytestmark = pytest.mark.skipif(not native.native_available(),
                                 reason="native toolchain unavailable")
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 
 def sub_time(c):
@@ -119,10 +119,10 @@ def test_native_tracker_multi_voice_schedule():
     """The native C++ tracker (mixer/scheduler) against the Python
     tracker on a staggered multi-voice schedule: same voices, same start
     offsets (mid-block and late starts), same mixed output."""
-    from tuun_tpu import native
+    from tuun_jax import native
     if not native.native_available():
         pytest.skip("no native toolchain")
-    from tuun_tpu.tracker import Tracker
+    from tuun_jax.tracker import Tracker
 
     sr = 100
     def fin_note(freq, dur):
@@ -156,7 +156,7 @@ def test_native_tracker_multi_voice_schedule():
 def test_native_tracker_late_start_catches_up():
     """A voice scheduled in the past skips the missed span (the reference
     generates-and-discards, tracker.rs:514-537)."""
-    from tuun_tpu import native
+    from tuun_jax import native
     if not native.native_available():
         pytest.skip("no native toolchain")
     sr = 100
@@ -173,7 +173,7 @@ def test_native_tracker_late_start_catches_up():
 
 
 def test_native_tracker_stop():
-    from tuun_tpu import native
+    from tuun_jax import native
     if not native.native_available():
         pytest.skip("no native toolchain")
     nt = native.NativeTracker(100)
@@ -188,7 +188,7 @@ def test_native_tracker_stop():
 def test_native_tracker_repeat_every():
     """repeat_every re-schedules a fresh copy each period, skipping
     repetitions the clock ran past (tracker.rs:546-573)."""
-    from tuun_tpu import native
+    from tuun_jax import native
     if not native.native_available():
         pytest.skip("no native toolchain")
     sr = 100

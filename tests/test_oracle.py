@@ -11,8 +11,8 @@ import math
 import numpy as np
 import pytest
 
-from tuun_tpu import ir, oracle, optimizer
-from tuun_tpu.ir import (Alt, Append, BinaryPointOp, Const, Filter, Fin,
+from tuun_jax import ir, oracle, optimizer
+from tuun_jax.ir import (Alt, Append, BinaryPointOp, Const, Filter, Fin,
                          Fixed, Marked, Operator, Reset, Sine, Time)
 
 TAU32 = np.float32(math.tau)

@@ -1,4 +1,4 @@
-"""Mesh-sharded voice rendering (tuun_tpu.parallel) and the driver entry
+"""Mesh-sharded voice rendering (tuun_jax.parallel) and the driver entry
 points (__graft_entry__) — conftest provides 8 virtual CPU devices."""
 
 import sys
@@ -10,8 +10,8 @@ import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from tuun_tpu import engine, ir
-from tuun_tpu.parallel import default_mesh, render_voices_meshed
+from tuun_jax import engine, ir
+from tuun_jax.parallel import default_mesh, render_voices_meshed
 
 needs_devices = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs 8 (virtual) devices")
@@ -51,7 +51,7 @@ def test_graft_entry_points():
 def test_tracker_with_mesh_matches_meshless():
     """A Tracker built with a Mesh shards voice groups over the voice
     axis; output must match the meshless tracker exactly."""
-    from tuun_tpu.tracker import Tracker
+    from tuun_jax.tracker import Tracker
 
     def song(t):
         for i in range(5):
@@ -101,13 +101,12 @@ def test_lane_sharded_output_is_time_sharded():
     """The lane-sharded step's device output is genuinely partitioned
     over the time axis (each device holds block/T lanes), not a
     full-width compute with a relayout."""
-    from tuun_tpu.engine.graph import CompiledVoice, EngineConfig
-    from tuun_tpu.parallel import _render_reloc_lane_sharded
+    from tuun_jax.engine.graph import CompiledVoice, EngineConfig
+    from tuun_jax.parallel import _render_reloc_lane_sharded
 
     mesh = default_mesh(8)
     w = reloc_note(0.7)
-    cfg = EngineConfig(8, precision="fast", jit=True, use_pallas=False,
-                       timeline=False)
+    cfg = EngineConfig(8, precision="fast", jit=True, timeline=False)
     voice = CompiledVoice(w, cfg)
     assert voice.relocatable
     out = _render_reloc_lane_sharded(voice, [voice.params()], 16, mesh, 16)
@@ -123,11 +122,11 @@ def test_tracker_mesh_timeline_score_matches_meshless():
     schedule lives in the compiled structure, and lits travel with the
     voice group."""
     from pathlib import Path
-    from tuun_tpu import optimizer
-    from tuun_tpu.evaluator import Evaluator
-    from tuun_tpu.tracker import Tracker
+    from tuun_jax import optimizer
+    from tuun_jax.evaluator import Evaluator
+    from tuun_jax.tracker import Tracker
 
-    stdlib = Path(__file__).resolve().parent.parent / "tuun_tpu" / \
+    stdlib = Path(__file__).resolve().parent.parent / "tuun_jax" / \
         "stdlib" / "v0"
     ev = Evaluator(8, 60, stdlib)
     seg = "0.5 | fin(time - 1) | seq(time - 1)"
@@ -153,7 +152,7 @@ def test_tracker_mesh_modify_carries_state():
     """Modify on a meshed voice group: the spliced voice must carry
     unchanged state exactly as on the meshless tracker (tracker.rs
     Modify semantics, :415-460)."""
-    from tuun_tpu.tracker import Tracker
+    from tuun_jax.tracker import Tracker
 
     def marked_note(freq, mark):
         return ir.BinaryPointOp(
@@ -190,7 +189,7 @@ def test_tracker_mesh_modify_on_reloc_fast_voice():
     group materialization produced (regression: a host reconstruction
     committed to one device conflicts with the 8-device-committed
     position at the next dispatch)."""
-    from tuun_tpu.tracker import Tracker, _CompileCache
+    from tuun_jax.tracker import Tracker, _CompileCache
 
     def marked_note(freq, mark):
         return ir.BinaryPointOp(
@@ -223,7 +222,7 @@ def test_tracker_mesh_modify_on_reloc_fast_voice():
 def test_tracker_mesh_levels():
     """Per-voice rms/peak levels on meshed voice groups (previously
     disabled in mesh mode)."""
-    from tuun_tpu.tracker import Tracker
+    from tuun_jax.tracker import Tracker
 
     def long_note(freq):
         return ir.Fin(
@@ -251,7 +250,7 @@ def test_tracker_mesh_fast_group_lane_sharded():
     """Relocatable voice groups on a (4, 2) mesh render lane-sharded
     (shard_map over both axes) inside the live tracker and must match
     the meshless tracker."""
-    from tuun_tpu.tracker import Tracker, _CompileCache
+    from tuun_jax.tracker import Tracker, _CompileCache
 
     def song(t, fast):
         t.cfg.reloc_fast = fast  # force the relocatable default on CPU
@@ -278,10 +277,10 @@ def test_render_voices_meshed_timeline_score():
     resolves the same literal schedule (previously forced to the plain
     tree)."""
     from pathlib import Path
-    from tuun_tpu import optimizer
-    from tuun_tpu.evaluator import Evaluator
+    from tuun_jax import optimizer
+    from tuun_jax.evaluator import Evaluator
 
-    stdlib = Path(__file__).resolve().parent.parent / "tuun_tpu" / \
+    stdlib = Path(__file__).resolve().parent.parent / "tuun_jax" / \
         "stdlib" / "v0"
     ev = Evaluator(8, 60, stdlib)
     segs = ", ".join(f"{v} | fin(time - 1) | seq(time - 1)"
@@ -289,9 +288,8 @@ def test_render_voices_meshed_timeline_score():
                                "0.75", "0.5", "0.25"))
     w = optimizer.optimize(ev.evaluate_source(
         "<[" + segs + "]>", opens=("std",)).waveform.waveform)
-    from tuun_tpu.engine.graph import CompiledVoice, EngineConfig
-    probe = CompiledVoice(w, EngineConfig(8, "fast", jit=True,
-                                          use_pallas=False))
+    from tuun_jax.engine.graph import CompiledVoice, EngineConfig
+    probe = CompiledVoice(w, EngineConfig(8, "fast", jit=True))
     assert probe._has_timeline  # the chain is long enough to timeline
     voices = [w, w, w]
     mesh = default_mesh(8)

@@ -1,4 +1,4 @@
-"""Compile pre-warming (tuun_tpu.prewarm) and the cold-start probe:
+"""Compile pre-warming (tuun_jax.prewarm) and the cold-start probe:
 the REPL pre-warms the stdlib's common voice structures in the
 background at launch so a fresh session's first `play` hits warm
 caches; bench.py's coldstart lane measures eval -> first audible block
@@ -10,12 +10,12 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from tuun_tpu.evaluator import Evaluator  # noqa: E402
-from tuun_tpu.prewarm import (COMMON_EXPRS, prewarm_structures,  # noqa: E402
+from tuun_jax.evaluator import Evaluator  # noqa: E402
+from tuun_jax.prewarm import (COMMON_EXPRS, prewarm_structures,  # noqa: E402
                               start_background)
-from tuun_tpu.tracker import Tracker  # noqa: E402
+from tuun_jax.tracker import Tracker  # noqa: E402
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 
 def test_prewarm_compiles_every_common_structure():
@@ -73,16 +73,16 @@ def test_prewarmed_play_is_fast():
     """The user-visible property: after pre-warming, eval -> first block
     of a same-structure program with DIFFERENT constants is quick (no
     compile; const leaves are runtime params)."""
-    from tuun_tpu.ids import WaveformId
-    from tuun_tpu.optimizer import optimize
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.ids import WaveformId
+    from tuun_jax.optimizer import optimize
+    from tuun_jax.player import build_top_level_waveform
 
     tracker = Tracker(8000, 256, precision="fast", jit=True)
     ev = Evaluator(8000, 120, STDLIB)
     prewarm_structures(tracker, ev, exprs=("$440 * Qw",))
     t0 = time.perf_counter()
     out = ev.evaluate_source("$523.25 * Qw", opens=("std",))
-    from tuun_tpu.expr import ESeq, EWaveform
+    from tuun_jax.expr import ESeq, EWaveform
     if isinstance(out, ESeq):
         out = out.waveform
     assert isinstance(out, EWaveform)

@@ -4,9 +4,9 @@ Clean subtrees splice original source text verbatim (whitespace and
 comments intact); mutated regions re-print structurally while clean
 children inside them still splice."""
 
-from tuun_tpu import parser, printer
-from tuun_tpu.diagnostics import Source
-from tuun_tpu.expr import EApply, EFloat, EVar
+from tuun_jax import parser, printer
+from tuun_jax.diagnostics import Source
+from tuun_jax.expr import EApply, EFloat, EVar
 
 
 def parse(src):
@@ -47,8 +47,8 @@ def test_operator_precedence_parens_on_dirty_reprint():
     assert parse(out) is not None
     # must keep the grouping: a naive splice without parens would
     # reassociate to 1 + 2 * 3
-    from tuun_tpu import eval as ev
-    from tuun_tpu.evaluator import Evaluator
+    from tuun_jax import eval as ev
+    from tuun_jax.evaluator import Evaluator
     from pathlib import Path
     e_val = Evaluator(100, 60, Path("."))
     v1 = e_val.evaluate_source("(1 + 2) * 3")

@@ -4,12 +4,12 @@ reference's programs.rs splice tests, programs.rs:1357-1987)."""
 
 from pathlib import Path
 
-import tuun_tpu.actions as A
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.programs import ProgramSet
-from tuun_tpu.tracker import Status
+import tuun_jax.actions as A
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.programs import ProgramSet
+from tuun_jax.tracker import Status
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 
 def slots(ps):
@@ -253,9 +253,9 @@ def test_runtime_level_change_persists_without_sliders():
 
 
 def _runner(source):
-    from tuun_tpu.effects import EffectRunner
-    from tuun_tpu.player import Player
-    from tuun_tpu.tracker import Tracker
+    from tuun_jax.effects import EffectRunner
+    from tuun_jax.player import Player
+    from tuun_jax.tracker import Tracker
 
     state, message = A.AppState.from_source(source)
     assert not message

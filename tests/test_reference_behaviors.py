@@ -13,15 +13,15 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tuun_tpu import eval as ev
-from tuun_tpu import ir, optimizer, parser
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.expr import BOpen, EFloat, ESeq, EWaveform, SourceBinding
-from tuun_tpu.ids import MarkId
-from tuun_tpu.programs import ProgramSet
-from tuun_tpu.session import TuunSession
+from tuun_jax import eval as ev
+from tuun_jax import ir, optimizer, parser
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.expr import BOpen, EFloat, ESeq, EWaveform, SourceBinding
+from tuun_jax.ids import MarkId
+from tuun_jax.programs import ProgramSet
+from tuun_jax.session import TuunSession
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 REF_LIB = Path("/root/reference/lib/v0")
 
 
@@ -29,8 +29,8 @@ def test_slider_marks_survive_optimizer():
     e = Evaluator(100, 90, STDLIB)
     bindings = [SourceBinding(BOpen(("__prelude",))),
                 SourceBinding(BOpen(("std",)))]
-    from tuun_tpu.sliders import append_slider_bindings
-    from tuun_tpu.expr import Slider, SliderLinear
+    from tuun_jax.sliders import append_slider_bindings
+    from tuun_jax.expr import Slider, SliderLinear
     configs = [Slider("vibrato", SliderLinear(5.0, 0.0, 10.0))]
     append_slider_bindings(configs, [0.5], MarkId.slider, bindings)
     expr = parser.parse_program(

@@ -7,10 +7,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tuun_tpu.repl import Repl
-from tuun_tpu.wav import read_wav
+from tuun_jax.repl import Repl
+from tuun_jax.wav import read_wav
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 SONG = '''// live set
 open std;
@@ -157,7 +157,7 @@ def test_loop_and_status(tmp_path):
 
 
 def test_cli_ui_flag_launches_repl(monkeypatch, tmp_path):
-    from tuun_tpu import cli
+    from tuun_jax import cli
     launched = {}
 
     class FakeRepl:
@@ -170,7 +170,7 @@ def test_cli_ui_flag_launches_repl(monkeypatch, tmp_path):
         def run(self):
             launched["ran"] = True
 
-    import tuun_tpu.repl as repl_mod
+    import tuun_jax.repl as repl_mod
     monkeypatch.setattr(repl_mod, "Repl", FakeRepl)
     src = tmp_path / "x.tuun"
     src.write_text("open std;\n#{level_db=0}\n_ = $10;\n")
@@ -187,7 +187,7 @@ def test_async_precompute_next_measure(tmp_path, monkeypatch):
     import threading
     import time
 
-    from tuun_tpu.engine import precompute as precompute_mod
+    from tuun_jax.engine import precompute as precompute_mod
 
     baking = threading.Event()
     release = threading.Event()
@@ -220,7 +220,7 @@ def test_async_precompute_next_measure(tmp_path, monkeypatch):
 
 
 def test_async_precompute_bake_failure_plays_unbaked(tmp_path, monkeypatch):
-    from tuun_tpu.engine import precompute as precompute_mod
+    from tuun_jax.engine import precompute as precompute_mod
 
     def broken(w, sample_rate, seed=0, cfg=None):
         raise RuntimeError("bake exploded")
@@ -240,7 +240,7 @@ def test_stop_cancels_inflight_async_bake(tmp_path, monkeypatch):
     next-measure bake completes after the stop."""
     import threading
 
-    from tuun_tpu.engine import precompute as precompute_mod
+    from tuun_jax.engine import precompute as precompute_mod
 
     release = threading.Event()
     real = precompute_mod.precompute
@@ -264,7 +264,7 @@ def test_stop_cancels_inflight_async_bake(tmp_path, monkeypatch):
 
 
 def test_stop_one_cancels_only_that_programs_bake(tmp_path, monkeypatch):
-    from tuun_tpu.engine import precompute as precompute_mod
+    from tuun_jax.engine import precompute as precompute_mod
 
     monkeypatch.setattr(
         precompute_mod, "precompute",
@@ -293,7 +293,7 @@ def test_midi_command_drives_controller_loop(tmp_path):
         pytest.approx(0.5 + 8 / 512.0)
     # the encoder display got the new value
     device = r._midi_device
-    from tuun_tpu import launchkey as lk
+    from tuun_jax import launchkey as lk
     d = device.displays[lk.ENCODER_DISPLAY_TARGET_OFFSET]
     assert d["fields"][0] == "gain"
     # mixer mode + encoder changes program 1's level

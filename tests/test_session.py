@@ -7,10 +7,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tuun_tpu.expr import TuunError
-from tuun_tpu.session import TuunSession
+from tuun_jax.expr import TuunError
+from tuun_jax.session import TuunSession
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 
 def make_session(sr=100, block=16, tempo=60):
@@ -110,7 +110,7 @@ def test_pm_piano_keys_instrument():
 
 
 def test_parse_sliders_helper():
-    from tuun_tpu.session import parse_sliders
+    from tuun_jax.session import parse_sliders
     out = parse_sliders('["gain:0.5:0:1", "cutoff:0.5:fn(x) => 100 * pow(100, x)"]')
     assert out[0] == {"type": "linear", "label": "gain",
                       "initial_value": 0.5, "min": 0.0, "max": 1.0}
@@ -122,7 +122,7 @@ def test_parse_sliders_helper():
 
 
 def test_evaluate_slider_helper():
-    from tuun_tpu.session import evaluate_slider
+    from tuun_jax.session import evaluate_slider
     assert abs(evaluate_slider("fn(x) => 100 * pow(100, x)", 0.5)
                - 1000.0) < 1.0
     assert abs(evaluate_slider("fn(x) => x * 2", 0.25) - 0.5) < 1e-6

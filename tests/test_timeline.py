@@ -7,11 +7,11 @@ falling back to the plain-tree compile)."""
 import numpy as np
 import pytest
 
-from tuun_tpu import ir, oracle, optimizer
-from tuun_tpu.engine.graph import CompiledVoice, EngineConfig, render
-from tuun_tpu.evaluator import Evaluator
-from tuun_tpu.expr import ESeq, EWaveform
-from tuun_tpu.tracker import Tracker
+from tuun_jax import ir, oracle, optimizer
+from tuun_jax.engine.graph import CompiledVoice, EngineConfig, render
+from tuun_jax.evaluator import Evaluator
+from tuun_jax.expr import ESeq, EWaveform
+from tuun_jax.tracker import Tracker
 
 SR = 8000
 
@@ -19,7 +19,7 @@ SR = 8000
 @pytest.fixture(scope="module")
 def ev(tmp_path_factory):
     from pathlib import Path
-    lib = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+    lib = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
     return Evaluator(SR, 120, lib)
 
 

@@ -7,13 +7,13 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from tuun_tpu import ir, oracle
-from tuun_tpu.ids import MarkId, WaveformId
-from tuun_tpu.player import Player, build_top_level_waveform, db_to_amplitude
-from tuun_tpu.tracker import Tracker, collect_marks
-from tuun_tpu.wav import read_wav, write_wav_f32
+from tuun_jax import ir, oracle
+from tuun_jax.ids import MarkId, WaveformId
+from tuun_jax.player import Player, build_top_level_waveform, db_to_amplitude
+from tuun_jax.tracker import Tracker, collect_marks
+from tuun_jax.wav import read_wav, write_wav_f32
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 
 def fin_const(value, seconds):
@@ -178,7 +178,7 @@ def test_player_measures():
 
 
 def test_cli_expr(tmp_path):
-    from tuun_tpu.cli import main
+    from tuun_jax.cli import main
     out = tmp_path / "out.wav"
     rc = main(["--expr", "$10 * Qw", "--sample_rate", "100", "--tempo", "60",
                "--render-out", str(out), "--no-jit", "--precision", "exact",
@@ -192,7 +192,7 @@ def test_cli_expr(tmp_path):
 
 
 def test_cli_file(tmp_path):
-    from tuun_tpu.cli import main
+    from tuun_jax.cli import main
     src = tmp_path / "song.tuun"
     src.write_text('#{level_db=0}\n_ = $10 | fin(time - 1);\n')
     out = tmp_path / "out.wav"
@@ -208,8 +208,8 @@ def test_vmapped_voice_group_mix():
     """Same-structure voices batch into one vmapped render; the mix must
     equal the sum of individually rendered voices."""
     import math
-    from tuun_tpu import optimizer, oracle
-    from tuun_tpu.evaluator import Evaluator
+    from tuun_jax import optimizer, oracle
+    from tuun_jax.evaluator import Evaluator
 
     sr, block = 100, 16
     ev = Evaluator(sr, 60, STDLIB)
@@ -237,7 +237,7 @@ def test_vmapped_voice_group_mix():
 
 
 def test_splice_and_persist_annotations(tmp_path):
-    from tuun_tpu.programs import ProgramSet
+    from tuun_jax.programs import ProgramSet
     src = ('// a song\n'
            '#{sliders=["gain:0.5:0:1"],level_db=-3}\n'
            '_ = $220 * gain;\n'
@@ -295,7 +295,7 @@ def test_deferred_sync_equivalence(tmp_path):
 
 
 def test_metric_ring_buffer():
-    from tuun_tpu.metric import Metric
+    from tuun_jax.metric import Metric
     clock = [0.0]
     m = Metric(window_seconds=1.0, buckets=10, clock=lambda: clock[0])
     m.set(1.0)
@@ -312,7 +312,7 @@ def test_metric_ring_buffer():
 
 
 def test_edit_history():
-    from tuun_tpu.programs import EditHistory
+    from tuun_jax.programs import EditHistory
     h = EditHistory("a")
     h.record("ab", coalesce=True)
     h.record("abc", coalesce=True)   # coalesces with the previous insert
@@ -351,7 +351,7 @@ def test_deferred_host_blocks_keep_fifo_order(monkeypatch):
     a pending voice) must not jump ahead of device windows whose
     device->host copies are still in flight: every block routes through
     the same delivery FIFO (regression: round-1 advisor HIGH finding)."""
-    import tuun_tpu.tracker as tr
+    import tuun_jax.tracker as tr
 
     def program(t):
         t.play("a", fin_const(1.0, 0.30))            # samples 0-29
@@ -386,7 +386,7 @@ def test_deferred_host_blocks_keep_fifo_order(monkeypatch):
 
 
 def _session_tracker(fuse: bool, **kw):
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.player import build_top_level_waveform
     t = Tracker(100, 16, precision="fast", jit=True, **kw)
     t.fuse = fuse
     t.fuse_blocking = True
@@ -423,7 +423,7 @@ def test_fused_session_step_matches_per_voice():
 
 
 def test_fused_session_step_modify_falls_back_and_reengages():
-    from tuun_tpu import sliders as sliders_mod
+    from tuun_jax import sliders as sliders_mod
     blocks = 6
     ref = _session_tracker(fuse=False)
     got_t = _session_tracker(fuse=True)
@@ -444,7 +444,7 @@ def test_fused_session_step_modify_falls_back_and_reengages():
 
 
 def test_fused_session_step_deferred_sync_levels_and_captures(tmp_path):
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.player import build_top_level_waveform
     ref = Tracker(100, 16, precision="fast", jit=True, sync_interval=4,
                   levels=True, captured_output_dir=tmp_path,
                   captured_date_format="")
@@ -476,7 +476,7 @@ def test_fused_session_step_deferred_sync_levels_and_captures(tmp_path):
 
 
 def _window_tracker(fuse: bool, lookahead=4):
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.player import build_top_level_waveform
     t = Tracker(100, 16, precision="fast", jit=True, sync_interval=4)
     t.fuse = fuse
     t.fuse_blocking = True
@@ -515,7 +515,7 @@ def test_lookahead_window_matches_per_block():
 def test_lookahead_window_interrupt_modify_exact():
     """A Modify mid-window interrupts: served sub-blocks replay so the
     splice lands at exactly the commanded block boundary."""
-    from tuun_tpu import sliders as sliders_mod
+    from tuun_jax import sliders as sliders_mod
     blocks_before, blocks_after = 6, 10
     ramp = sliders_mod.make_ramp(1.0, 0.0, 0.16)
     outs = []
@@ -537,7 +537,7 @@ def test_lookahead_window_interrupt_survives_cache_eviction():
     instead of silently skipping the served blocks — a skipped replay
     freezes every voice's state while `now` advances, permanently
     desyncing the stream."""
-    from tuun_tpu import sliders as sliders_mod
+    from tuun_jax import sliders as sliders_mod
     blocks_before, blocks_after = 6, 10
     ramp = sliders_mod.make_ramp(1.0, 0.0, 0.16)
     outs = []
@@ -558,7 +558,7 @@ def test_lookahead_window_interrupt_survives_cache_eviction():
 def test_lookahead_window_respects_pending_starts():
     """A pending voice starting inside the would-be window keeps the
     per-block path (no window may cross a promotion boundary)."""
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.player import build_top_level_waveform
     t = _window_tracker(fuse=True)
     t.play(WaveformId.program(3), build_top_level_waveform(
         ir.Sine(ir.Const(5.0), ir.Const(0.0)), 0.0), start=40)
@@ -578,7 +578,7 @@ def test_group_survives_unrelated_retirement_without_rewind():
     progress lives in the group's batched state).  Checked against the
     analytic signal, not another tracker path — all paths shared this
     bug, so differential checks missed it."""
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.player import build_top_level_waveform
     t = Tracker(100, 16, precision="fast", jit=True, sync_interval=1)
     t.fuse = False
     t.play(WaveformId.program(0), build_top_level_waveform(
@@ -612,7 +612,7 @@ def test_window_sync_cadence_counts_blocks_not_windows():
 
 
 def test_remove_pending_does_not_interrupt_window():
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.player import build_top_level_waveform
     t = _window_tracker(fuse=True)
     t.play(WaveformId.program(5), build_top_level_waveform(
         ir.Sine(ir.Const(5.0), ir.Const(0.0)), 0.0), start=10_000)
@@ -655,7 +655,7 @@ def test_steady_state_rendering_compiles_nothing():
     degrades every later dispatch in the process — the compile-time
     verification incident, docs/design.md; this pins the steady state
     clean so that class of regression shows up on CPU.)"""
-    from tuun_tpu.tracker import _CompileCache
+    from tuun_jax.tracker import _CompileCache
     t = Tracker(100, 16, precision="fast", jit=True,
                 compile_cache=_CompileCache())
     for i in range(3):
@@ -683,7 +683,7 @@ def test_windowed_streaming_steady_state_compiles_nothing():
     """The lookahead-window streaming path, once warm, also builds no
     new executables per window.  (All-infinite voices: a retirement is
     a legitimate set change and recompiles the pack signature.)"""
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.player import build_top_level_waveform
     t = Tracker(100, 16, precision="fast", jit=True, sync_interval=4)
     t.fuse = True
     t.fuse_blocking = True
@@ -736,7 +736,7 @@ def test_interrupt_window_keeps_sync_cadence():
     """Blocks served from a window before an interrupt must count toward
     the sync cadence (regression: up to K-1 blocks of slip after every
     play-triggered interrupt)."""
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.player import build_top_level_waveform
     t = Tracker(100, 16, precision="fast", jit=True, sync_interval=4)
     t.fuse = True
     t.fuse_blocking = True
@@ -760,7 +760,7 @@ def test_single_member_set_gets_lookahead_window():
     """A one-instrument session (the common production case) must still
     engage lookahead windows — K-1 dispatches saved per window
     (regression: the <2-member fusion guard blocked windows too)."""
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax.player import build_top_level_waveform
     t = Tracker(100, 16, precision="fast", jit=True, sync_interval=4)
     t.fuse = True
     t.fuse_blocking = True
@@ -781,8 +781,8 @@ def test_window_interrupt_refreshes_levels():
     of k served sub-blocks reports the k-th block's levels, not the
     zeros past the extent) — a live session interrupts constantly and
     would otherwise show stale HUD meters forever (review round 4)."""
-    from tuun_tpu import sliders as sliders_mod
-    from tuun_tpu.player import build_top_level_waveform
+    from tuun_jax import sliders as sliders_mod
+    from tuun_jax.player import build_top_level_waveform
 
     t = Tracker(100, 16, precision="fast", jit=True, sync_interval=4,
                 levels=True)
@@ -853,7 +853,7 @@ def test_window_prefetch_invalidated_by_modify_between_windows():
     window just finalized) replaces the voice's params/state objects, so
     the speculative next window MUST be discarded; adopting it would
     resurrect the pre-Modify waveform for a whole window."""
-    from tuun_tpu import sliders as sliders_mod
+    from tuun_jax import sliders as sliders_mod
     ramp = sliders_mod.make_ramp(1.0, 0.5, 0.16)
     outs = []
     for fuse in (False, True):

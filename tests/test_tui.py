@@ -1,4 +1,4 @@
-"""Terminal renderer (tuun_tpu.tui) — the live renderer.rs analogue:
+"""Terminal renderer (tuun_jax.tui) — the live renderer.rs analogue:
 braille oscilloscope with clip colors, spectrum bars, HUD sparklines,
 level meters, and the REPL `view` repaint loop."""
 
@@ -8,10 +8,10 @@ from pathlib import Path
 
 import numpy as np
 
-from tuun_tpu import tui
-from tuun_tpu.repl import Repl
+from tuun_jax import tui
+from tuun_jax.repl import Repl
 
-STDLIB = Path(__file__).resolve().parent.parent / "tuun_tpu" / "stdlib" / "v0"
+STDLIB = Path(__file__).resolve().parent.parent / "tuun_jax" / "stdlib" / "v0"
 
 
 def test_braille_scope_dimensions_and_content():

@@ -15,8 +15,8 @@ import threading
 import numpy as np
 import pytest
 
-from tuun_tpu.session import TuunSession
-from tuun_tpu.tools.web_demo import WEB_ROOT, TuunWebServer
+from tuun_jax.session import TuunSession
+from tuun_jax.tools.web_demo import WEB_ROOT, TuunWebServer
 
 SR = 8000
 BLOCK = 256
@@ -233,7 +233,7 @@ def test_keys_stream_carries_silence_between_notes(server):
 
 
 def test_instance_cap_evicts_oldest(server):
-    from tuun_tpu.tools import web_demo
+    from tuun_jax.tools import web_demo
     old_cap = web_demo.MAX_INSTANCES
     web_demo.MAX_INSTANCES = 4
     try:

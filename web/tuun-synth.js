@@ -1,4 +1,4 @@
-/* <tuun-synth>: the Tuun synthesizer web component, TPU-server edition.
+/* <tuun-synth>: the Tuun synthesizer web component, server edition.
  *
  * Same element API as the reference component (web/tuun-synth.js in the
  * Rust repo): attributes `description`, `open` (JSON list of modules),
@@ -9,9 +9,9 @@
  * Where the reference instantiates a WASM engine inside an
  * AudioWorkletProcessor and pumps tuun.process(output) per 128-sample
  * quantum (web/tuun-processor.js:46-69), this element streams rendered
- * float32 blocks from the local tuun-tpu server (tools/web_demo.py) and
+ * float32 blocks from the local tuun-jax server (tools/web_demo.py) and
  * feeds them to a queue-draining worklet — the process() pump runs on
- * the TPU end of a chunked HTTP response instead of in-page.
+ * the server's end of a chunked HTTP response instead of in-page.
  */
 
 const FEED_WORKLET = `
